@@ -1,4 +1,4 @@
-"""BFV homomorphic encryption engine (TPU-native RNS/NTT implementation).
+"""BFV homomorphic encryption engine (RNS/NTT implementation on u32 lanes).
 
 Provides the capability surface the reference obtains from Microsoft SEAL 4.1
 (see SURVEY.md §2 "external"): parameters with BFVDefault-style chains,

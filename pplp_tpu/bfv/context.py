@@ -81,7 +81,7 @@ class BFVContext:
     @staticmethod
     @functools.lru_cache(maxsize=8)
     def build(parms: EncryptionParameters, engine: str = "stage") -> "BFVContext":
-        """engine: NTT implementation ("stage" | "four" | "vmem");
+        """engine: NTT implementation ("stage" | "four" | "four4");
         all NTT-domain state in this context uses that engine's spectrum
         order, so a context is internally consistent by construction."""
         err = parms.validate()

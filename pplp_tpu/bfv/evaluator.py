@@ -132,7 +132,7 @@ class Evaluator:
     # operand ONCE, combine in the spectrum, and inverse-transform once,
     # with bit-identical results to the op-by-op coefficient-domain chain.
     # SEAL's BFV evaluator re-transforms per multiply_plain call; this is
-    # the TPU-native transform-budget optimization (NTT sweeps are the HBM
+    # the transform-budget optimization (NTT sweeps are the memory-traffic
     # currency — docs/performance_model.md).
 
     def plain_spectrum(self, plain):

@@ -3,7 +3,8 @@
 Mirrors the parameter surface the reference touches at
 ``/root/reference/src/demo.cc:66-74``: scheme=BFV, ``poly_modulus_degree``
 2^12..2^15, ``coeff_modulus = CoeffModulus::BFVDefault(n)``, and
-``plain_modulus = 2^b`` (b <= 56). Adds a TPU-fast chain profile.
+``plain_modulus = 2^b`` (b <= 56). Adds the ``tpu`` chain profile (every
+prime < 2^30, one u32 lane per residue).
 """
 
 from __future__ import annotations

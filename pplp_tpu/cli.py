@@ -138,6 +138,10 @@ def demo_main(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from .utils.chipstate import enable_compile_cache
+
+    # Every protocol process of one checkout shares its compiled stages.
+    enable_compile_cache()
     if args.cmd == "demo":
         return demo_main(args)
     if args.cmd == "client":

@@ -1,7 +1,7 @@
 """Batched DGK operations: the fused-kernel comparison path.
 
 Where the reference executes one GMP modexp at a time (``dgk.cc:33-75``),
-these run B-wide on TPU lanes via ``modexp.MontgomeryCtx``: batch encrypt,
+these run B-wide on device lanes via ``modexp.MontgomeryCtx``: batch encrypt,
 batch decrypt (shared-exponent c^vpq + hash-map table lookup), and the full
 blinded-distance comparison pipeline for 10k+ parallel checks
 (BASELINE.md config[2]).

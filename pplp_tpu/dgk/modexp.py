@@ -1,4 +1,4 @@
-"""Batched multi-precision modular exponentiation on TPU lanes.
+"""Batched multi-precision modular exponentiation on u32 device lanes.
 
 The DGK back-end's hot path is 2048-bit modexps (encrypt: g^m * h^r mod n;
 homomorphic eval: powers; decrypt: c^vpq) which the reference executes one at

@@ -1,1 +1,1 @@
-"""Compute kernels: modular arithmetic, NTT, and their Pallas TPU variants."""
+"""Compute kernels: modular arithmetic, NTT engines, prime chains."""

@@ -1,20 +1,20 @@
 """Modular arithmetic over 32-bit integer lanes.
 
-TPU vector lanes are 32-bit and there is no 64-bit integer multiplier, so every
-64-bit (and wider) quantity is represented as little-endian u32 limbs and all
-products are built from 16-bit digit partial products (comba multiplication).
-This module is pure ``jax.numpy`` — shape-polymorphic, jittable, vmappable —
-and is the reference semantics for the Pallas kernels in
-``pplp_tpu.ops.ntt_vmem``.
+Every 64-bit (and wider) quantity is represented as little-endian u32 limbs
+and all products are built from 16-bit digit partial products (comba
+multiplication). This u32-lane design was inherited from the package's first
+accelerator target, which had no 64-bit integer multiplier, and is kept for
+now. This module is pure ``jax.numpy`` — shape-polymorphic, jittable,
+vmappable.
 
 Two "profiles" are provided:
 
 * ``m31`` — moduli q < 2^30. A residue is a single uint32 array. This is the
-  TPU fast profile: Shoup multiplication is 2 u32 multiplies + 1 mulhi.
+  fast profile: Shoup multiplication is 2 u32 multiplies + 1 mulhi.
 * ``m62`` — moduli q < 2^62 (covers SEAL-4.1-style default chains whose primes
   are 27..61 bits). A residue is a ``(lo, hi)`` pair of uint32 arrays.
 
-Replaces (TPU-native, not a translation) the role played in the reference by
+Replaces (not a translation) the role played in the reference by
 SEAL's ``seal::util`` 64/128-bit modular arithmetic, which backs every
 Evaluator call in ``/root/reference/src/demo.cc:154-160``.
 """

@@ -1,14 +1,14 @@
-"""Negacyclic NTT/INTT over RNS prime chains, vectorized for TPU lanes.
+"""Negacyclic NTT/INTT over RNS prime chains, vectorized over u32 lanes.
 
-Design (TPU-first, not a port of SEAL's scalar loops): every butterfly stage is
-one whole-array operation over the trailing coefficient axis reshaped to
-``[..., L, h, 2, t]`` — XLA maps these onto full-width vector ops; the Pallas
-kernel variant (``ntt_vmem``) runs all stages out of VMEM. Twiddles
-are Harvey/Longa-Naehrig bit-reversed psi-power tables with Shoup precomputed
+Design (not a port of SEAL's scalar loops): every butterfly stage is one
+whole-array operation over the trailing coefficient axis reshaped to
+``[..., L, h, 2, t]``, which XLA maps onto full-width vector ops. Twiddles are
+Harvey/Longa-Naehrig bit-reversed psi-power tables with Shoup precomputed
 companions, so an NTT multiply is 2 u32 multiplies + 1 mulhi on the m31
-profile.
+profile. The u32-lane design was inherited from the package's first
+accelerator target and is kept for now.
 
-Replaces (TPU-native) SEAL's ``util::ntt_negacyclic_harvey`` that ultimately
+Replaces SEAL's ``util::ntt_negacyclic_harvey`` that ultimately
 executes every ``Evaluator::multiply_plain`` in the reference protocol
 (``/root/reference/src/demo.cc:155-159``).
 
@@ -30,7 +30,9 @@ import numpy as np
 from .modmath import m31, m62
 from .primes import Modulus
 
-__all__ = ["NttTables", "build_tables", "forward", "inverse",
+ENGINES = ("stage", "four", "four4")
+
+__all__ = ["ENGINES", "NttTables", "build_tables", "forward", "inverse",
            "forward_chunked", "inverse_chunked", "pointwise_mul",
            "negacyclic_polymul", "to_device", "to_numpy"]
 
@@ -64,8 +66,6 @@ class NttTables:
       * "four4"       — four-step with radix-4 fused column sweeps (same
                         tables and output order as "four", bit-identical
                         spectra, ~half the materialized butterfly sweeps)
-      * "vmem"        — transpose-free fused Pallas kernel (step A along
-                        sublanes, step C along lanes)
     """
 
     n: int
@@ -105,6 +105,8 @@ def build_tables(
     moduli: Sequence[Modulus], n: int, engine: str = "stage"
 ) -> NttTables:
     """Build forward/inverse twiddle tables for a chain of NTT-friendly primes."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown NTT engine {engine!r}; expected one of {ENGINES}")
     logn = n.bit_length() - 1
     assert 1 << logn == n
     profile = "m31" if all(m.value < (1 << 30) for m in moduli) else "m62"
@@ -208,10 +210,6 @@ def forward(x, tb: NttTables):
         from . import ntt4
 
         return ntt4.forward4(x, tb.four_step, radix4=tb.engine == "four4")
-    if tb.engine == "vmem":
-        from . import ntt_vmem
-
-        return ntt_vmem.forward_vmem(x, tb.four_step)
     p = tb.prof
     n = tb.n
     q3 = tb.q_b(2)
@@ -239,10 +237,6 @@ def inverse(x, tb: NttTables):
         from . import ntt4
 
         return ntt4.inverse4(x, tb.four_step, radix4=tb.engine == "four4")
-    if tb.engine == "vmem":
-        from . import ntt_vmem
-
-        return ntt_vmem.inverse_vmem(x, tb.four_step)
     p = tb.prof
     n = tb.n
     q3 = tb.q_b(2)
@@ -281,12 +275,12 @@ def _map_chunks(fn, x, chunk: int):
 
 def forward_chunked(x, tb: NttTables, chunk: int = 1024):
     """Big-batch forward NTT: ``lax.map`` over ``chunk``-row blocks inside
-    one jit. The monolithic [10240, 3, 8192] graph runs at ~0.58x the
-    per-element rate of the batch-1024 shape (working-set locality: the
-    four-step transposes of a >1 GB array thrash HBM); mapping chunk-sized
-    blocks recovers it — 516k vs 298k limb-transforms/s measured at the
-    BASELINE batch (scripts/r5_ntt_bigbatch_ab.py). Falls through to
-    :func:`forward` when the batch is small or not divisible."""
+    one jit. On the first accelerator target the monolithic [10240, 3, 8192]
+    graph lost a large share of the per-element rate of the batch-1024 shape
+    (working-set locality: the four-step transposes of a >1 GB array), and
+    mapping chunk-sized blocks recovered it; on the GPU this is not measured
+    yet. Falls through to :func:`forward` when the batch is small or not
+    divisible."""
     return _map_chunks(lambda c: forward(c, tb), x, chunk)
 
 

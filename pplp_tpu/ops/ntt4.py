@@ -1,4 +1,4 @@
-"""Four-step negacyclic NTT: the TPU-native decomposition.
+"""Four-step negacyclic NTT: the production transform decomposition.
 
 Splits the length-n transform into n = C1 x C2 (C2 = vector lane width 128):
 
@@ -11,11 +11,12 @@ Splits the length-n transform into n = C1 x C2 (C2 = vector lane width 128):
 
 Output order is an internal bijection (digit-transposed, bit-reversed per
 digit); ``inverse4`` mirrors it exactly, and pointwise products only ever pair
-like-ordered spectra. This file is the jnp reference semantics; the fused
-Pallas kernels (``ntt_vmem.py``, ``bfv/behz_fused.py``) reuse this math in VMEM.
+like-ordered spectra. The layout (a 128-wide axis that no butterfly splits)
+was inherited from the package's first accelerator target and is kept for
+now.
 
-Cites: replaces the role of SEAL's ntt_negacyclic_harvey (see ntt.py) with a
-layout chosen for the 8x128 VPU rather than scalar butterflies.
+Cites: replaces the role of SEAL's ntt_negacyclic_harvey (see ntt.py) with
+whole-array butterflies rather than scalar ones.
 """
 
 from __future__ import annotations
@@ -159,7 +160,7 @@ def build_tables4(moduli: Sequence[Modulus], n: int) -> FourStepTables:
 # one materialized sweep: identical multiplies in identical order (outputs
 # are bit-identical to the radix-2 loops — pinned in tests/test_ntt4.py),
 # but ~half the whole-array reshape/stack sweeps, which is what the
-# XLA-compiled transform is bound by on TPU (round-5 roofline).
+# XLA-compiled transform was bound by on the first accelerator target.
 # ---------------------------------------------------------------------------
 
 

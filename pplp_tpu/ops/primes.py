@@ -6,7 +6,7 @@ Replaces (behaviorally) SEAL's ``CoeffModulus::BFVDefault`` used at
 the same deterministic rule SEAL uses — the largest primes below 2^bit_size
 congruent to 1 mod 2n, in descending order within a bit size.
 
-Also provides a TPU-fast profile (``tpu_default``) of <2^30 primes so residues
+Also provides the ``tpu`` profile (``tpu_default``) of <2^30 primes so residues
 fit a single 32-bit lane (see ``pplp_tpu.ops.modmath.m31``).
 
 Everything here is Python-int host code executed once at context build; no
@@ -82,7 +82,7 @@ _BFV_DEFAULT_BITS = {
     32768: [55] * 15 + [56],
 }
 
-# TPU-fast chains: every prime < 2^30 so a residue is one u32 lane. Totals stay
+# ``tpu`` profile chains: every prime < 2^30 so a residue is one u32 lane. Totals stay
 # within the same security budgets as above.
 _TPU_DEFAULT_BITS = {
     1024: [27],
@@ -111,7 +111,7 @@ def bfv_default(poly_modulus_degree: int) -> list[int]:
 
 
 def tpu_default(poly_modulus_degree: int) -> list[int]:
-    """TPU-fast chain: <2^30 primes, same security budget, more limbs."""
+    """``tpu`` profile chain: <2^30 primes, same security budget, more limbs."""
     return _chain(_TPU_DEFAULT_BITS, poly_modulus_degree)
 
 

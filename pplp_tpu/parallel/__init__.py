@@ -1,9 +1,9 @@
 """Device-mesh parallelism: sharding layouts and the batched pipeline.
 
-TPU-native distribution (SURVEY.md §2 parallelism table):
+Distribution (SURVEY.md §2 parallelism table):
   dp    — ciphertext-batch data parallel (independent proximity checks)
   limb  — RNS-limb tensor parallel (NTT/pointwise ops are limb-independent)
-  coeff — polynomial-coefficient sequence parallel (cross-chip NTT stages)
+  coeff — polynomial-coefficient sequence parallel (cross-device NTT stages)
 """
 
 from .mesh import make_mesh, ct_spec, ct_sharding

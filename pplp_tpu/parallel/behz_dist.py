@@ -7,12 +7,12 @@ wise or spectrum-pointwise, so the whole multiply runs inside ONE shard_map
 with the polynomial's lane axis sharded over the 'coeff' mesh axis:
 
   to_bsk / fast-floor / Shenoy-Kumaresan / pointwise tensor  — local math
-  forward + inverse NTTs       — local four-step passes + one ICI all-to-all
+  forward + inverse NTTs       — local four-step passes + one all-to-all
                                  each (parallel/ntt_dist.py schedule)
   relinearization              — local digit lift + dist NTTs + key pointwise
 
-Cross-chip traffic per transform is the bisection-optimal n*(S-1)/S
-coefficients; on hardware the all-to-all rides the ICI ring. Spectra use the
+Cross-device traffic per transform is the bisection-optimal n*(S-1)/S
+coefficients. Spectra use the
 ntt4 ("four") ordering, so contexts must be built with engine="four" and the
 relin keys generated under that engine; results are bit-exact vs the
 single-device RnsMultiplier + relinearize on the same context (tested on the
@@ -35,7 +35,9 @@ from ..bfv.context import BFVContext
 from ..ops import ntt4
 from ..ops.modmath import m31
 from ..ops.ntt4 import C2
-from .ntt_dist import _tw_shards, shard_map
+from jax import shard_map
+
+from .ntt_dist import _tw_shards
 
 __all__ = ["DistMultiplier"]
 

@@ -1,11 +1,13 @@
 """Multi-host setup (SURVEY.md §2: multi-host pod runs one role's compute).
 
-The reference's "cluster" story is two processes on a TCP socket plus an frp
-tunnel (README.md:62-68). Here, one protocol role can span a multi-host TPU
-pod slice: ``jax.distributed`` coordinates the hosts over DCN, device
-collectives ride ICI, and the role-to-role link stays the framed TCP channel.
+The reference's "cluster" story is two processes on a TCP socket
+(README.md:62-68). Here, one protocol role can span several hosts:
+``jax.distributed`` coordinates the hosts over the data-center network,
+device collectives run between the devices (NVLink within a GPU host), and
+the role-to-role link stays the framed TCP channel.
 
-Usage on each host of a slice:
+Usage on each host (the coordinator address, process count and rank are
+always given explicitly; nothing is discovered from the environment):
 
     from pplp_tpu.parallel.distributed import initialize_multihost, global_mesh
     initialize_multihost(coordinator="10.0.0.1:8476", num_processes=2,
@@ -13,7 +15,7 @@ Usage on each host of a slice:
     mesh = global_mesh()            # dp x limb x coeff over ALL devices
 
 Tested single-host via the 8-device virtual CPU mesh (tests/test_parallel.py)
-and the driver's ``dryrun_multichip``; real multi-host wiring is env-driven.
+and ``__graft_entry__.dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -25,20 +27,13 @@ from .mesh import factor_devices, make_mesh
 __all__ = ["initialize_multihost", "global_mesh", "local_batch_slice"]
 
 
-def initialize_multihost(
-    coordinator: str | None = None,
-    num_processes: int | None = None,
-    process_id: int | None = None,
-):
-    """jax.distributed.initialize with explicit or env-provided topology."""
-    kwargs = {}
-    if coordinator is not None:
-        kwargs["coordinator_address"] = coordinator
-    if num_processes is not None:
-        kwargs["num_processes"] = num_processes
-    if process_id is not None:
-        kwargs["process_id"] = process_id
-    jax.distributed.initialize(**kwargs)
+def initialize_multihost(coordinator: str, num_processes: int, process_id: int):
+    """jax.distributed.initialize with an explicit topology."""
+    jax.distributed.initialize(
+        coordinator_address=coordinator,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
 
 
 def global_mesh(dp=None, limb=None, coeff=None):

@@ -3,8 +3,9 @@
 A ciphertext batch is laid out [B, L, n] (batch, RNS limb, coefficient) and
 sharded over a 3-axis mesh ('dp', 'limb', 'coeff'). RNS limbs never
 communicate in NTT/pointwise ops, so 'limb' is pure tensor parallelism; the
-'coeff' axis makes XLA insert collectives for the high-stride butterfly stages
-(the ICI all-to-all pattern; a Pallas remote-DMA NTT is the planned fast path).
+'coeff' axis carries the NTT's one all-to-all exchange per transform
+(parallel/ntt_dist.py). On cards joined all to all (NVLink) the exchange has
+no preferred neighbours, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -16,16 +17,15 @@ __all__ = ["make_mesh", "ct_spec", "ct_sharding", "factor_devices"]
 
 
 def factor_devices(n: int) -> tuple[int, int, int]:
-    """Split n devices into (dp, limb, coeff): 2-way dp and limb when
-    available, remaining factor to the coefficient axis (so >=8 devices
-    exercise all three parallelism kinds)."""
-    dp = 1
-    if n % 2 == 0:
-        dp, n = 2, n // 2
-    limb = 1
-    if n % 2 == 0:
-        limb, n = 2, n // 2
-    return dp, limb, n
+    """Split n devices into (dp, limb, coeff): coefficients shard first (up
+    to 4 ways, so four devices carry the all-to-all NTT), then 2-way dp, and
+    the remaining factor goes to the limb axis."""
+    coeff = 1
+    while coeff < 4 and n % (2 * coeff) == 0:
+        coeff *= 2
+    n //= coeff
+    dp = 2 if n % 2 == 0 else 1
+    return dp, n // dp, coeff
 
 
 def make_mesh(devices=None, dp=None, limb=None, coeff=None) -> Mesh:

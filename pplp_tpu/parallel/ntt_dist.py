@@ -1,4 +1,4 @@
-"""Distributed negacyclic NTT with an explicit ICI collective.
+"""Distributed negacyclic NTT with an explicit all-to-all collective.
 
 The four-step decomposition (ops/ntt4.py) is exactly the textbook distributed
 NTT: with the lane axis C2 sharded over the 'coeff' mesh axis,
@@ -6,10 +6,9 @@ NTT: with the lane axis C2 sharded over the 'coeff' mesh axis,
   step A  (length-C1 column NTTs)   — local: butterflies run down the C1
                                       axis, which every shard holds whole;
   step B  (twiddle matrix)          — local (per-shard twiddle slice);
-  transpose + ALL-TO-ALL            — the one cross-chip exchange; on TPU
-                                      this is a single ICI all-to-all
-                                      (SURVEY.md §2: the "ring-attention-
-                                      shaped" communication of this domain);
+  transpose + ALL-TO-ALL            — the one cross-device exchange, a
+                                      single all-to-all (over NVLink on a
+                                      multi-GPU host);
   step C  (length-128 column NTTs)  — local again (C1 is now the sharded
                                       lane axis).
 
@@ -32,14 +31,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # stable API (jax >= 0.6); the experimental one warns/then disappears
-    from jax import shard_map as _new_shard_map
-
-    def shard_map(f, mesh, in_specs, out_specs, check_rep=False):
-        return _new_shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-
-except ImportError:
-    from jax.experimental.shard_map import shard_map  # accepts check_rep
+from jax import shard_map
 
 from ..ops import ntt4
 from ..ops.modmath import m31
@@ -114,7 +106,7 @@ def make_dist_ntt(tb: FourStepTables, mesh: Mesh, coeff_axis: str = "coeff",
         xb = ntt4._intt_col_negacyclic(xb, iw1, iw1s, qq, tb.logc1)   # < 2q
         return m31.csub(xb, qq)
 
-    smap = functools.partial(shard_map, mesh=mesh, check_rep=False)
+    smap = functools.partial(shard_map, mesh=mesh)
     fwd = smap(
         fwd_local,
         in_specs=(spec_in, spec_tbl2, spec_tbl2, spec_tw, spec_tw,

@@ -1,17 +1,16 @@
 """Jitted protocol stages: one compiled graph per stage per context.
 
-The protocol roles (roles.py) are written over the eager BFV API; on a real
-TPU every eager op is a separate dispatch through the runtime, and a full
-protocol run issues thousands of them (~7k measured for one demo run) —
-dispatch latency, not compute, dominated the round-2 tc/ts sweep
-(~21 s/radius). These wrappers trace each protocol stage ONCE per
+The protocol roles (roles.py) are written over the eager BFV API; on an
+accelerator every eager op is a separate dispatch through the runtime, and a
+full protocol run issues thousands of them, so dispatch latency, not compute,
+dominates. These wrappers trace each protocol stage ONCE per
 (context, shapes) and take all radius/key-dependent values (public key,
 blinding plaintexts, secret key) as runtime arguments, so every radius of a
 sweep reuses the same executable and a stage is a single dispatch.
 
 The reference gets this for free: SEAL's C++ Evaluator runs at native speed
 per call (/root/reference/src/server.cc:122-133). This module is the
-TPU-native equivalent: XLA-compiled stage graphs.
+accelerator equivalent: XLA-compiled stage graphs.
 """
 
 from __future__ import annotations

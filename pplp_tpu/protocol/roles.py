@@ -87,7 +87,7 @@ class ProximityClient:
     def ciphertext_messages(self) -> list[bytes]:
         """Encrypt u = xa^2 + ya^2, 2*xa, 2*ya (demo.cc:131-140).
 
-        All three encryptions run as one jitted graph (one TPU dispatch);
+        All three encryptions run as one jitted graph (one device dispatch);
         the per-message key chain matches the eager path bit-for-bit.
         """
         import numpy as np

@@ -9,7 +9,7 @@ clear-computation verification oracle the reference prints
 Two execution models:
 
 * In-process batched simulation (``sharing``/``circuits``): shares are device
-  arrays, gates vectorize on TPU lanes, the dealer is trusted — the fast path
+  arrays, gates vectorize on device lanes, the dealer is trusted — the fast path
   for batched predicate evaluation.
 * Two real parties over TCP (``ot``/``networked``): Chou–Orlandi base OT +
   IKNP extension + Gilboa Beaver triples (the protocol stack the reference

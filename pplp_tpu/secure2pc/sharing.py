@@ -1,6 +1,6 @@
 """Additive secret sharing over Z_{2^32} with Beaver-triple multiplication.
 
-The TPU-native analogue of ABY's arithmetic sharing (``S_ARITH``): shares are
+The device analogue of ABY's arithmetic sharing (``S_ARITH``): shares are
 u32 device arrays, every gate is a vectorized lane op, and whole batches of
 circuit instances evaluate in one jit. The dealer plays ABY's OT-based triple
 generation (trusted-dealer model).

@@ -16,7 +16,7 @@ real parties:
     adder) followed by a 32-bit LT borrow chain (1 AND/bit), so
     "x0 + x1 < thr" costs 64 ANDs per instance.
 
-The batched in-process path (circuits.py) remains the TPU-vectorized fast
+The batched in-process path (circuits.py) remains the device-vectorized fast
 path; this is the two-party transport-faithful one.
 """
 

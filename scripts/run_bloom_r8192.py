@@ -3,7 +3,7 @@
 Reference accepts r up to 8192 (/root/reference/src/demo.cc:115-125); its
 insert loop is scalar C++. Here: device batch insert in 1M-key chunks
 (scatter-OR), sampled membership probe, serialize/deserialize roundtrip.
-Run on the TPU; prints JSONL wall times (recorded in docs/benchmarks.md).
+Run on the GPU (`python scripts/run_bloom_r8192.py`); prints JSONL wall times.
 """
 import json
 import os

@@ -1,21 +1,10 @@
-"""Measurement-hygiene utilities (canary gating, compile cache)."""
+"""Timing utilities and the persistent compile cache."""
 
 import time
 
 import jax
 
 from pplp_tpu.utils import chipstate
-
-
-def test_canary_latency_positive_and_fast():
-    lat = chipstate.canary_latency()
-    assert 0 < lat < 1.0  # CPU backend: well under a second
-
-
-def test_chip_healthy_and_wait():
-    # On the CPU test backend the canary is microseconds; healthy holds.
-    assert chipstate.chip_healthy()
-    assert chipstate.wait_healthy(max_wait_s=2.0)
 
 
 def test_timed_windows_measures_and_bounds_budget():
@@ -36,18 +25,19 @@ def test_timed_windows_measures_and_bounds_budget():
 
 
 def test_timed_windows_records_at_least_one_window_when_gated_out():
-    # Force the gate to always report unhealthy: the loop must still record
-    # one window rather than hang or return empty.
-    orig = chipstate.chip_healthy
-    chipstate.chip_healthy = lambda: False
-    try:
-        best, med = chipstate.timed_windows(
-            lambda x: x, jax.numpy.arange(4), windows=4, inner=1,
-            gap_s=0.0, budget_s=1.0
-        )
-        assert best > 0 and med > 0
-    finally:
-        chipstate.chip_healthy = orig
+    # A budget already spent cuts the window loop, but never below one
+    # window: the loop must record it rather than hang or return empty.
+    calls = []
+
+    def fn(x):
+        calls.append(1)
+        return x
+
+    best, med = chipstate.timed_windows(
+        fn, jax.numpy.arange(4), windows=4, inner=1, gap_s=0.0, budget_s=-1.0
+    )
+    assert best > 0 and med > 0
+    assert len(calls) == 2  # 1 warmup + exactly 1 window
 
 
 def test_timed_windows_multi_interleaves_all_variants():
@@ -72,17 +62,23 @@ def test_timed_windows_multi_interleaves_all_variants():
 
 
 def test_timed_windows_multi_never_healthy_falls_back_ungated():
-    orig = chipstate.chip_healthy
-    chipstate.chip_healthy = lambda: False
-    try:
-        out = chipstate.timed_windows_multi(
-            {"a": (lambda x: x + 1, (jax.numpy.arange(4),))},
-            windows=3, inner=1, gap_s=0.0, budget_s=0.5,
-        )
-        best, med = out["a"]
+    # Spent budget: every variant still gets exactly one window.
+    calls = {"a": 0, "b": 0}
+
+    def mk(name):
+        def fn(x):
+            calls[name] += 1
+            return x + 1
+        return fn
+
+    x = jax.numpy.arange(4)
+    out = chipstate.timed_windows_multi(
+        {"a": (mk("a"), (x,)), "b": (mk("b"), (x,))},
+        windows=3, inner=1, gap_s=0.0, budget_s=-1.0,
+    )
+    for best, med in out.values():
         assert best > 0 and med > 0
-    finally:
-        chipstate.chip_healthy = orig
+    assert calls == {"a": 2, "b": 2}  # warmup + one window each
 
 
 def test_enable_compile_cache_idempotent():

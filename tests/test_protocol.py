@@ -8,7 +8,7 @@ from pplp_tpu.protocol import ProtocolConfig, run_local_demo
 
 
 def small_cfg(**kw):
-    # n=4096 with the TPU profile keeps CI fast; coordinates default small.
+    # n=4096 with the `tpu` profile keeps CI fast; coordinates default small.
     base = dict(
         poly_modulus_degree_bits=12,
         plain_modulus_bits=40,
